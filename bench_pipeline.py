@@ -5,7 +5,7 @@ Simulates an N-species dataset (human + N-1 diverged species,
 single_cov2 to produce .sing.maf inputs, then times the full in-memory
 tba pipeline (tree merges, projections, threading) with the DP
 executed (a) inline on host (the reference's shape), (b) as batched
-device launches via the packed Pallas kernel, and (c) packed with
+device launches through the CUDA kernel, and (c) packed with
 concurrent tree merges pooling their DP jobs into shared device
 batches (tba_run(parallel=N) + SharedBatch, tree.py).
 
@@ -56,7 +56,11 @@ def _caterpillar_tree() -> str:
 
 TREE = _caterpillar_tree()
 _tag = f"{REF_LEN}_{N_SPECIES}sp_{N_CONTIGS}c"
-CACHE = os.environ.get("MZ_PIPE_DIR", f"/tmp/mz_pipebench_{_tag}")
+CACHE = os.environ.get(
+    "MZ_PIPE_DIR",
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), ".cache",
+                 f"pipebench_{_tag}"),
+)
 
 
 def build_dataset():
@@ -65,7 +69,7 @@ def build_dataset():
     )
     from sim import SimConfig, simulate, simulate_multi
 
-    from multiz_tpu.cli import single_cov2 as sc2_cli
+    from multiz_jax.cli import single_cov2 as sc2_cli
 
     if os.path.exists(os.path.join(CACHE, f"human.{SPECIES[-1]}.sing.maf")):
         return
@@ -89,21 +93,21 @@ def build_dataset():
 
 
 def run(mode: str):
-    from multiz_tpu import scores as sc
-    from multiz_tpu.multiz import MultizConfig
-    from multiz_tpu.tree import tba_run
+    from multiz_jax import scores as sc
+    from multiz_jax.multiz import MultizConfig
+    from multiz_jax.tree import tba_run
 
     sp = sc.init_scores70()
     batch_fn = None
     parallel = None
     if mode.startswith("packed"):
-        from multiz_tpu.ops.yama_pack import yama_batch_packed
+        from multiz_jax.ops.yama_pack import yama_batch_packed
 
         batch_fn = yama_batch_packed
         if mode == "packed-par":
             parallel = PAR
     elif mode == "host-batched":
-        from multiz_tpu.ops.dispatch import host_batch
+        from multiz_jax.ops.dispatch import host_batch
 
         batch_fn = host_batch
     cfg = MultizConfig(batch_fn=batch_fn)
@@ -127,7 +131,7 @@ def main():
         for it in range(2 if mode != "inline" else 1):
             blocks, dt = run(mode)
             best = dt if best is None else min(best, dt)
-        from multiz_tpu.maf import format_ali
+        from multiz_jax.maf import format_ali
 
         rendered = "".join(format_ali(a) for a in blocks)
         if base is None:

@@ -17,9 +17,9 @@ def main():
     import bench_pipeline as bp
 
     bp.build_dataset()
-    from multiz_tpu import scores as sc
-    from multiz_tpu.multiz import MultizConfig
-    from multiz_tpu.parallel.pipeline import tba_run_sharded
+    from multiz_jax import scores as sc
+    from multiz_jax.multiz import MultizConfig
+    from multiz_jax.parallel.pipeline import tba_run_sharded
 
     nshards = int(sys.argv[1]) if len(sys.argv) > 1 else 2
     sp = sc.init_scores70()

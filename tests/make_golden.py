@@ -100,7 +100,7 @@ def _gen_band(M, N, r, rng):
 
 
 def make_yama_fixtures(n_cases=64, seed=123):
-    from multiz_tpu import yama as Y
+    from multiz_jax import yama as Y
 
     rng = np.random.default_rng(seed)
     out = {}

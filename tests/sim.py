@@ -167,7 +167,7 @@ def _simulate_pair(ref: np.ndarray, div: float, cfg: SimConfig, rng):
 
 def _write_pair_maf(path, ref_name, sp_name, contig, blocks, ref_len, sp_len,
                     score_fn):
-    from multiz_tpu import maf
+    from multiz_jax import maf
 
     blocks = sorted(blocks, key=lambda b: b.ref_start)
     with open(path, "w") as fh:
@@ -201,7 +201,7 @@ def simulate(cfg: SimConfig, outdir: str) -> None:
     ref = ACGT[rng.integers(0, 4, cfg.ref_len)]
     _fasta(os.path.join(outdir, "human"), "human", cfg.contig, ref)
 
-    from multiz_tpu import scores as sc
+    from multiz_jax import scores as sc
 
     sc.init_scores70()
 
@@ -232,8 +232,8 @@ def simulate_multi(cfg: SimConfig, outdir: str, n_contigs: int = 2) -> None:
     """Like simulate() but with ``n_contigs`` chromosomes per species:
     exercises the per-chromosome work split (seperate_cp_wk,
     multi_util.c:816-843) and multi-contig projection paths."""
-    from multiz_tpu import maf
-    from multiz_tpu import scores as sc
+    from multiz_jax import maf
+    from multiz_jax import scores as sc
 
     os.makedirs(outdir, exist_ok=True)
     rng = np.random.default_rng(cfg.seed)

@@ -22,10 +22,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from multiz_tpu import scores as sc
-from multiz_tpu.align_util import PwUAliFiles, connection_agreement2
-from multiz_tpu.maf import Ali, Comp, format_ali, read_maf, pos2col
-from multiz_tpu.preyama import pre_yama2
+from multiz_jax import scores as sc
+from multiz_jax.align_util import PwUAliFiles, connection_agreement2
+from multiz_jax.maf import Ali, Comp, format_ali, read_maf, pos2col
+from multiz_jax.preyama import pre_yama2
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 DATA = os.path.join(GOLDEN, "data", "prey2")
@@ -194,10 +194,10 @@ def test_mark_infered_pws_golden():
     """mark_infered_pws + print_unused_ali vs the C harness
     (align_util.c:662-758, 144-169): multi-blocks explain pairwise
     regions; unexplained runs are emitted."""
-    from multiz_tpu.align_util import (
+    from multiz_jax.align_util import (
         PwUAliFiles, form_name_list, mark_infered_pws,
     )
-    from multiz_tpu.maf import read_maf
+    from multiz_jax.maf import read_maf
 
     sc.init_scores70()
     nlist = read_maf(
@@ -208,7 +208,7 @@ def test_mark_infered_pws_golden():
                       src_dir=DATA0)
     mark_infered_pws(nlist, pws)
     out = io.StringIO()
-    from multiz_tpu.align_util import print_unused_ali
+    from multiz_jax.align_util import print_unused_ali
 
     for i, f in enumerate(pws.files):
         out.write(f"## pairfile {i}: {f.filename}\n")
@@ -222,8 +222,8 @@ def test_mark_infered_pws_golden():
 def test_find_exemplar_golden():
     """Find_Exemplar greedy cover vs the C harness
     (align_util.c:760-832)."""
-    from multiz_tpu.align_util import UAliFile, find_exemplar
-    from multiz_tpu.maf import read_maf
+    from multiz_jax.align_util import UAliFile, find_exemplar
+    from multiz_jax.maf import read_maf
 
     sc.init_scores70()
     blocks = read_maf(os.path.join(DATA0, "multi.maf"), verbose=False)

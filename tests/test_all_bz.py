@@ -8,8 +8,8 @@ import sys
 
 import pytest
 
-from multiz_tpu.blastz_wrapper import main as bzw_main
-from multiz_tpu.cli.all_bz import main as all_bz_main
+from multiz_jax.blastz_wrapper import main as bzw_main
+from multiz_jax.cli.all_bz import main as all_bz_main
 
 from .conftest import GOLDEN
 from .make_golden import ALL_BZ_DRY_CASES

@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from multiz_tpu.cli.dna_nib import main as dna_nib_main
+from multiz_jax.cli.dna_nib import main as dna_nib_main
 
 from .conftest import GOLDEN
 

@@ -3,7 +3,7 @@
 import io
 import os
 
-from multiz_tpu.cli import lav2maf as cli_l2m, maf2lav as cli_m2l
+from multiz_jax.cli import lav2maf as cli_l2m, maf2lav as cli_m2l
 
 from .conftest import GOLDEN
 

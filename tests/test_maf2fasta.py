@@ -5,8 +5,8 @@ import os
 
 import pytest
 
-from multiz_tpu.cli import get_standard_headers as cli_gsh
-from multiz_tpu.cli import maf2fasta as cli_m2f
+from multiz_jax.cli import get_standard_headers as cli_gsh
+from multiz_jax.cli import maf2fasta as cli_m2f
 
 from .conftest import GOLDEN
 from .make_golden import M2F_CASES

@@ -5,7 +5,7 @@ import os
 
 import numpy as np
 
-from multiz_tpu import maf
+from multiz_jax import maf
 
 from .conftest import GOLDEN
 

@@ -10,8 +10,8 @@ import os
 
 import pytest
 
-from multiz_tpu.cli import maf_find as find_cli
-from multiz_tpu.cli import maf_project as proj_cli
+from multiz_jax.cli import maf_find as find_cli
+from multiz_jax.cli import maf_project as proj_cli
 
 from .conftest import GOLDEN
 

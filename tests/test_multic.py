@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from multiz_tpu.cli import multic as cli_mc
+from multiz_jax.cli import multic as cli_mc
 
 from .conftest import GOLDEN
 

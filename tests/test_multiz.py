@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from multiz_tpu.cli import multiz as cli
+from multiz_jax.cli import multiz as cli
 
 from .conftest import GOLDEN
 
@@ -43,15 +43,18 @@ def test_multiz_interleaved(v):
 def test_multiz_deferred_batch_path(v, monkeypatch):
     """Two-phase plan/execute/stitch (MultizConfig.batch_fn) is
     byte-identical to the inline scan (reference multiz.c:60-177)."""
-    monkeypatch.setenv("MULTIZ_TPU_DEVICE", "host")
+    monkeypatch.setenv("MULTIZ_DEVICE", "host")
     got = run_cli([F1, F2, str(v)])
     want = read(os.path.join(EXPECT, f"multiz_v{v}.maf"))
     assert got == want
 
 
 def test_multiz_deferred_batch_path_jax(monkeypatch):
-    """Same, executing the plan through the batched XLA kernel."""
-    monkeypatch.setenv("MULTIZ_TPU_DEVICE", "jax")
+    """Same, executing the plan through the streaming device executor
+    over the plain XLA core, with every DP on the device."""
+    monkeypatch.setenv("MULTIZ_DEVICE", "jax")
+    monkeypatch.setenv("MZ_HOST_ROUTE_CELLS", "0")
+    monkeypatch.setenv("MZ_HOST_DP_THREADS", "0")
     got = run_cli([F1, F2, "0"])
     want = read(os.path.join(EXPECT, "multiz_v0.maf"))
     assert got == want
@@ -75,7 +78,7 @@ def test_single_row_a2_overlap():
     Regression: r4's 20Mb 2-chromosome run crashed on np.stack([])."""
     import io
 
-    from multiz_tpu.cli import multiz as cli
+    from multiz_jax.cli import multiz as cli
 
     m1 = (
         "##maf version=1 scoring=blastz\n"

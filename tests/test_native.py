@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from multiz_tpu import scores as sc
-from multiz_tpu import yama as Y
-from multiz_tpu.native import load
-from multiz_tpu.ops.synth import synth_jobs
+from multiz_jax import scores as sc
+from multiz_jax import yama as Y
+from multiz_jax.native import load
+from multiz_jax.ops.synth import synth_jobs
 
 
 @pytest.fixture(scope="module")

@@ -15,15 +15,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from sim import SimConfig, simulate_multi  # noqa: E402
 
-from multiz_tpu import scores as sc  # noqa: E402
-from multiz_tpu.maf import format_ali  # noqa: E402
-from multiz_tpu.multiz import MultizConfig  # noqa: E402
-from multiz_tpu.parallel.pipeline import (  # noqa: E402
+from multiz_jax import scores as sc  # noqa: E402
+from multiz_jax.maf import format_ali  # noqa: E402
+from multiz_jax.multiz import MultizConfig  # noqa: E402
+from multiz_jax.parallel.pipeline import (  # noqa: E402
     discover_contigs,
     make_shards,
     tba_run_sharded,
 )
-from multiz_tpu.tree import t_project, tba_run  # noqa: E402
+from multiz_jax.tree import t_project, tba_run  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +34,7 @@ def dataset(tmp_path_factory):
         divergence=(0.03, 0.2),
     )
     simulate_multi(cfg, d, n_contigs=2)
-    from multiz_tpu.cli import single_cov2 as sc2_cli
+    from multiz_jax.cli import single_cov2 as sc2_cli
 
     for s in cfg.species:
         with open(os.path.join(d, f"human.{s}.sing.maf"), "w") as fh:

@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from multiz_tpu.cli import (
+from multiz_jax.cli import (
     get_covered as cli_gc,
     maf_order as cli_mo,
     maf_sort as cli_ms,
@@ -84,8 +84,8 @@ def test_seq_filename_spec(capsys):
     SEQ_HAS_MASK which nothing sets before the first read)."""
     import numpy as np
 
-    from multiz_tpu.cli import get_standard_headers as gsh
-    from multiz_tpu.seqio import read_fasta, read_fasta_spec
+    from multiz_jax.cli import get_standard_headers as gsh
+    from multiz_jax.seqio import read_fasta, read_fasta_spec
 
     two = os.path.join(DATA, "two.fa")
     for spec, golden in (
@@ -111,7 +111,7 @@ def test_pair2tb_encode_headers():
     """17-separator ENCODE/MSA FASTA headers (parseMSAHeader,
     multi_util.c:261-299): form 1 (fields 7/8/10/11) on the reference
     side, form 2 (fields 15/13/11) on the species side."""
-    from multiz_tpu.cli import pair2tb as p2t_cli
+    from multiz_jax.cli import pair2tb as p2t_cli
 
     out = io.StringIO()
     p2t_cli.main(

@@ -8,9 +8,9 @@ import os
 
 import pytest
 
-from multiz_tpu import scores as sc
-from multiz_tpu.maf import format_ali
-from multiz_tpu.tree import roast_run, tba_run
+from multiz_jax import scores as sc
+from multiz_jax.maf import format_ali
+from multiz_jax.tree import roast_run, tba_run
 
 from .conftest import GOLDEN
 
@@ -69,8 +69,8 @@ def test_tba_ref_centric():
 
 
 def test_tba_output_is_threaded():
-    from multiz_tpu.cli.maf_check_thread import check_threading
-    from multiz_tpu.maf_project import project
+    from multiz_jax.cli.maf_check_thread import check_threading
+    from multiz_jax.maf_project import project
 
     sp = sc.init_scores70()
     blocks = tba_run(TREE3, PAIRS3, src_dir=DATA, sp=sp)
@@ -108,7 +108,7 @@ def test_tba_parallel_schedule_deterministic():
 def test_plans_and_parallel_failure():
     """tba_plan/roast_plan cover every node; a raising merge in parallel
     mode propagates instead of deadlocking the pool."""
-    from multiz_tpu.tree import roast_plan, tba_plan
+    from multiz_jax.tree import roast_plan, tba_plan
 
     plan = tba_plan(TREE4, PAIRS4, ref="human")
     assert sum(l.startswith("node ") for l in plan) == 3

@@ -13,10 +13,10 @@ import os
 
 import pytest
 
-from multiz_tpu import scores as sc
-from multiz_tpu.cli import single_cov2 as sc2_cli
-from multiz_tpu.maf import format_ali
-from multiz_tpu.tree import roast_run, tba_run
+from multiz_jax import scores as sc
+from multiz_jax.cli import single_cov2 as sc2_cli
+from multiz_jax.maf import format_ali
+from multiz_jax.tree import roast_run, tba_run
 
 from .conftest import GOLDEN
 
@@ -67,8 +67,8 @@ def test_tba_5species_parallel():
 def test_tba_5species_parallel_shared_batch():
     """Concurrent merges pooling DP jobs into shared batches
     (tree.SharedBatch) are byte-identical to the sequential scan."""
-    from multiz_tpu.multiz import MultizConfig
-    from multiz_tpu.ops.dispatch import host_batch
+    from multiz_jax.multiz import MultizConfig
+    from multiz_jax.ops.dispatch import host_batch
 
     sp = sc.init_scores70()
     blocks = tba_run(

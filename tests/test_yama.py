@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from multiz_tpu import yama as Y
+from multiz_jax import yama as Y
 
 from .conftest import GOLDEN
 
@@ -47,8 +47,8 @@ def test_band_checks():
 def test_native_yama_matches_python():
     """mzcore.yama_into (C++ host DP) is bit-identical to the pure-NumPy
     oracle across random banded problems."""
-    import multiz_tpu.yama as Y
-    from multiz_tpu.ops.synth import synth_jobs
+    import multiz_jax.yama as Y
+    from multiz_jax.ops.synth import synth_jobs
 
     if Y._mzcore is None or not hasattr(Y._mzcore, "yama_into"):
         pytest.skip("native runtime unavailable")
@@ -67,7 +67,7 @@ def test_native_yama_matches_python():
 
 
 def test_oracle_band_memory_50kb():
-    """The pure-NumPy fallback (MULTIZ_TPU_NO_NATIVE=1) at 50kb x 50kb
+    """The pure-NumPy fallback (MULTIZ_NO_NATIVE=1) at 50kb x 50kb
     R=30 must run in O(band) memory like the reference (mz_yama.c:60-77)
     and the native path: band flags ~14MB + per-row vectors, NOT the
     dense (M+1)x(N+1) flag/SUB matrices (2.5GB / 20GB). Asserted via an
@@ -80,9 +80,9 @@ import resource
 resource.setrlimit(resource.RLIMIT_AS, (2 << 30, 2 << 30))
 import numpy as np
 import os
-os.environ["MULTIZ_TPU_NO_NATIVE"] = "1"
-os.environ["MULTIZ_TPU_NO_COMPILE_CACHE"] = "1"
-from multiz_tpu import yama as Y
+os.environ["MULTIZ_NO_NATIVE"] = "1"
+os.environ["MULTIZ_NO_COMPILE_CACHE"] = "1"
+from multiz_jax import yama as Y
 assert Y._mzcore is None
 rng = np.random.default_rng(3)
 M = N = 50_000

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from multiz_tpu import yama as Y
-from multiz_tpu.ops.synth import synth_jobs
-from multiz_tpu.ops.yama_jax import yama_batch, yama_jax
+from multiz_jax import yama as Y
+from multiz_jax.ops.synth import synth_jobs
+from multiz_jax.ops.yama_jax import yama_batch, yama_jax
 
 from .conftest import GOLDEN
 
@@ -39,7 +39,7 @@ def test_yama_batch_matches_numpy_on_synth():
 def test_yama_batch_sharded_matches_numpy():
     import jax
 
-    from multiz_tpu.parallel.sharding import make_mesh
+    from multiz_jax.parallel.sharding import make_mesh
 
     devices = jax.devices("cpu")
     if len(devices) < 2:
